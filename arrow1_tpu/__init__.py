@@ -1,28 +1,29 @@
-"""arrow1_tpu — a TPU-native vectorized columnar query-execution engine.
+"""arrow1_tpu — a vectorized columnar query-execution engine in JAX.
 
 Brand-new design with the capabilities of Apache Arrow's C++ compute layer
-(reference: /root/reference cpp/src/arrow/compute), built TPU-first on
-JAX/XLA/Pallas: columns are fixed-width device arrays with bool validity
-masks, strings are dictionary-encoded at ingest, kernels are jitted XLA
-graphs or Pallas kernels, and distribution is `shard_map` + ICI collectives
-over a `jax.sharding.Mesh` instead of RPC.
+(reference: cpp/src/arrow/compute), built on JAX/XLA: columns are
+fixed-width device arrays with bool validity masks, strings are
+dictionary-encoded at ingest, kernels are jitted XLA graphs, and
+distribution is `shard_map` + collectives over a `jax.sharding.Mesh`
+instead of RPC. It runs on NVIDIA GPUs (and on the CPU for tests).
 
-Layer map (mirrors SURVEY.md §1, re-homed for TPU):
+Layer map (mirrors SURVEY.md §1):
   dtypes/column/table      <- Arrow type system + ArrayData/RecordBatch/Table
   ops/* + registry          <- compute kernel registry (compute/registry.cc)
   expr                      <- compute/exec/expression.{h,cc}
-  exec/*                    <- ExecPlan/ExecNode skeleton + streaming driver
+  query                     <- the fluent entry point (a1t.query)
+  exec/*                    <- ExecPlan/ExecNode skeleton, compiled and
+                               streaming drivers
   parallel/*                <- Flight-as-shuffle -> mesh collectives
   io/*                      <- IPC/CSV/Parquet host ingest
-  kernels/*                 <- Pallas TPU kernels (hash/radix/compaction)
+  kernels/*                 <- hash-table, radix-key and scan kernels
 """
 
 import jax
 
 # int64/float64 columns are first-class in the reference engine; enable
-# 64-bit mode globally (TPU executes f64 via software emulation; the hot
-# benchmark paths are bandwidth-bound so this costs little, and parity with
-# pyarrow demands exact 64-bit semantics).
+# 64-bit mode globally (parity with pyarrow demands exact 64-bit
+# semantics).
 jax.config.update("jax_enable_x64", True)
 
 from . import dtypes  # noqa: E402

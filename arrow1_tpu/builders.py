@@ -5,7 +5,7 @@ Append/AppendNull/AppendValues/Finish/Reset/Reserve) and the typed
 builders (builder_primitive.h, builder_binary.h, builder_nested.h,
 builder_dict.h).
 
-TPU-first stance: device arrays are immutable, so incremental building is
+Device-first stance: device arrays are immutable, so incremental building is
 host work by definition. Builders accumulate into amortized-doubling
 numpy buffers and `finish()` performs ONE H2D transfer — the reference's
 builder->Array finalize, with the device boundary in the same place its

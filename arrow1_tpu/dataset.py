@@ -5,7 +5,7 @@ Scanner/ScannerBuilder (scanner.h:241,313), Hive/directory Partitioning
 with expression pruning (partition.h:59), filter+project pushdown
 (scanner_internal.h:41-151).
 
-TPU shape: fragments are files; partition pruning runs host-side via
+Device shape: fragments are files; partition pruning runs host-side via
 simplify_with_guarantee (exactly the reference's SimplifyWithGuarantee
 pruning, expression.cc:963); surviving fragments stream through readahead
 prefetch into device batches, where filter/project execute as fused device

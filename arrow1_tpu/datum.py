@@ -2,7 +2,7 @@
 
 Reference: cpp/src/arrow/scalar.h:52 (boxed single values per type) and
 datum.h:105 (tagged union over Scalar/Array/ChunkedArray/RecordBatch/Table
-used as the universal compute argument). The TPU design keeps the same
+used as the universal compute argument). The device design keeps the same
 shape: kernels accept Datums so scalar/column broadcasting resolves at
 trace time.
 """

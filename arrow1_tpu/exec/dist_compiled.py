@@ -6,7 +6,7 @@ device dispatch + host sync per op. This module composes the same
 shuffle + padded-kernel bodies into ONE jitted shard_map program, so a
   filter -> project -> join -> group_by -> sort -> limit
 chain is a single XLA computation over the whole mesh: all_to_all
-shuffles ride ICI *inside* the program, per-shard kernels run between
+shuffles ride the device interconnect *inside* the program, per-shard kernels run between
 them, and the host sees only padded outputs + counts at the end.
 
 The reference has no distributed engine (SURVEY.md §2: Flight ships the

@@ -1,22 +1,18 @@
 """Staged group-by: the compiled group_by split into cached dispatches.
 
-VERDICT r4 #4: the fused one-program group-by at G=1M costs 1552 s of
-remote compile (gb4_sum_10M_G1000000) — the same wall the join build hit
-when four blocked scans fused into one program (jb_runsall never
-finished; the five host-driven dispatches compile in 18.6 s total,
-kernels/hashtable.py::join_build_staged). This module applies the same
-treatment to BASELINE config 2: the sorted-space group-by runs as a
-handful of HOST-DRIVEN stages, each its own jitted program that caches
-independently (in-process and in the persistent compile cache):
+The fused one-program group-by at G=1M was slow to compile on the
+engine's first target, so this module runs the sorted-space group-by
+(BASELINE config 2) as a handful of HOST-DRIVEN stages, each its own
+jitted program that caches independently (in-process and in the
+persistent compile cache). Whether the H100 still needs the split is
+an open question (ROADMAP Design 4):
 
   1. pack+sort      minimal-width key pack + ONE variadic lax.sort
                     carrying aggregate payloads (ops/padded.py gsp_sort)
-  2. flags          segment-start flags + group count (gsp_flags)
-  3. positions      small G / CPU: searchsorted (one program);
-                    large G on TPU: the Pallas startpos stream
-                    compaction (its own cached dispatch) + slot math
+  2+3. segments     segment-start flags, group count and slot positions
+                    (gsp_segments: searchsorted at small G, a flag sort
+                    at large G)
   4. scan planes    one blocked cumsum / flagged scan PER PROGRAM
-                    (fusing several is the compile wall)
   5. ends+assemble  segment-end extraction + G-sized output arithmetic
 
 Outputs are bit-identical to the fused pipeline's group_by (test-
@@ -123,37 +119,14 @@ class _GBPlan:
         _, self.used_bits = pack_operands(dummy_pairs)
         del np
 
-        # ---- stage 2: flags ----
-        def _flags(sorted_words):
-            from ..ops.padded import gsp_flags
-
-            live_sorted, first, num_groups = gsp_flags(
-                list(sorted_words), self.used_bits, False)
-            return live_sorted, first, num_groups
-
-        self.flags_jit = jax.jit(_flags)
-
-        # ---- stage 3 (small G / CPU fallback): one-program segments --
+        # ---- stages 2+3: one-program segments ----
         def _segments(sorted_words):
             from ..ops.padded import gsp_segments
 
-            sg, was = gsp_segments(list(sorted_words), self.used_bits,
-                                   False, G, want_start_words=True)
-            return sg, None if was is None else tuple(was)
+            return gsp_segments(list(sorted_words), self.used_bits,
+                                False, G)
 
         self.segments_jit = jax.jit(_segments)
-
-        # ---- stage 3 (large G, TPU): post-compaction slot math ----
-        def _pos_big(pos_pad, total_segs, num_groups, words_comp):
-            from ..ops.padded import gsp_positions_big
-
-            s, e, gv, was = gsp_positions_big(
-                pos_pad.astype(jnp.int32), total_segs.astype(jnp.int32),
-                num_groups, G, n,
-                None if words_comp is None else list(words_comp))
-            return s, e, gv, None if was is None else tuple(was)
-
-        self.pos_big_jit = jax.jit(_pos_big)
 
         # ---- stage 4: one scan plane per program ----
         def _sum_plane(xs, mask_s, live_sorted, acc_name, pre=None):
@@ -224,7 +197,7 @@ class _GBPlan:
         placements, key_spans = self.placements, self.key_spans
 
         def _assemble(ends, startpos, endpos, group_valid, num_groups,
-                      words_at_start, swords):
+                      swords):
             from ..kernels.radix import decode_packed_key
             from ..ops.padded import SortedGroups, seg_diff_lo
 
@@ -276,10 +249,7 @@ class _GBPlan:
                 vals = []
                 for pi in range(p0, p0 + pcnt):
                     wi, shift, bits = placements[pi]
-                    if words_at_start is not None:
-                        w = words_at_start[wi]
-                    else:
-                        w = swords[wi][startpos]
+                    w = swords[wi][startpos]
                     if bits == 0:
                         vals.append(w)
                     else:
@@ -324,8 +294,6 @@ def staged_group_by(batch: RecordBatch, keys, aggregates,
     Returns (RecordBatch[G padded], group_valid bool[G], overflow) —
     the same padded contract as the compiled pipeline; slice with
     ``num_groups`` (= group_valid.sum()) for exact rows."""
-    import os
-
     if isinstance(keys, str):
         keys = [keys]
     keys = list(keys)
@@ -413,32 +381,8 @@ def staged_group_by(batch: RecordBatch, keys, aggregates,
     sorted_words, sorted_p = plan.sort_jit(key_arrays, pay_arrays)
 
     # ---- stages 2+3: segment structure ----
-    mode = os.environ.get("A1T_GROUP_STARTPOS", "compact")
-    big = G > 65536
-    use_compact = big and (
-        (mode == "compact" and jax.default_backend() == "tpu")
-        or mode == "interpret")
-    if use_compact:
-        from ..kernels.compaction_v4 import compact
-
-        live_sorted, first, num_groups = plan.flags_jit(sorted_words)
-        iota = jnp.arange(n, dtype=jnp.int32)
-        # f64 raw sort operands (f64 keys) cannot bit-view on device —
-        # those words skip the compaction; assemble gathers them
-        can_ride = not any(jnp.issubdtype(w.dtype, jnp.floating)
-                           for w in sorted_words)
-        extra = sorted_words if can_ride else ()
-        outs, total_segs = compact(first, (iota,) + extra,
-                                   variant="v7:8",
-                                   interpret=mode == "interpret")
-        startpos, endpos, group_valid, words_at_start = \
-            plan.pos_big_jit(outs[0], total_segs, num_groups,
-                             tuple(outs[1:]) if can_ride else None)
-        overflow = num_groups > G
-    else:
-        (live_sorted, first, startpos, endpos, group_valid,
-         num_groups, overflow), words_at_start = \
-            plan.segments_jit(sorted_words)
+    (live_sorted, first, startpos, endpos, group_valid, num_groups,
+     overflow) = plan.segments_jit(sorted_words)
 
     # ---- stage 4: scan planes (one dispatch each) ----
     planes = []
@@ -477,30 +421,17 @@ def staged_group_by(batch: RecordBatch, keys, aggregates,
             if jnp.issubdtype(p.dtype, jnp.floating)]
     intp = [i for i in range(len(planes)) if i not in f64p]
     ends: List[Optional[jnp.ndarray]] = [None] * len(planes)
-    if f64p:
-        got = plan.ends_f64_jit(tuple(planes[i] for i in f64p), endpos)
-        for j, i in enumerate(f64p):
-            ends[i] = got[j]
-    if intp:
-        if use_compact:
-            from ..kernels.compaction_v4 import compact
-
-            last = jnp.concatenate([first[1:], jnp.ones(1, jnp.bool_)])
-            outs2, _ = compact(last, tuple(planes[i] for i in intp),
-                               variant="v7:8",
-                               interpret=mode == "interpret")
-            for j, i in enumerate(intp):
-                ends[i] = outs2[j][:G]
-        else:
-            got = plan.ends_gather_jit(
-                tuple(planes[i] for i in intp), endpos)
-            for j, i in enumerate(intp):
+    for idx, ends_jit in ((f64p, plan.ends_f64_jit),
+                          (intp, plan.ends_gather_jit)):
+        if idx:
+            got = ends_jit(tuple(planes[i] for i in idx), endpos)
+            for j, i in enumerate(idx):
                 ends[i] = got[j]
 
     # ---- stage 5b: assembly ----
     outs, key_outs = plan.assemble_jit(
         tuple(ends), startpos, endpos, group_valid, num_groups,
-        words_at_start, sorted_words)
+        sorted_words)
 
     cols, names = [], []
     for (kind, cname, fn, out_t, vc, extra), (data, validity) in zip(

@@ -5,7 +5,7 @@ HashAggregateKernel consume/merge/finalize (kernel.h:637-676) — the
 mechanism that lets arbitrary-length inputs reduce in bounded memory
 (SURVEY.md §5 "row-count scaling via chunked streaming").
 
-TPU shape: each consume() is one fused device computation over a
+Device shape: each consume() is one fused device computation over a
 HBM-resident batch; merge algebra runs on tiny per-chunk partials:
 
     sum:   total = sum(partial_sums)

@@ -4,7 +4,7 @@ Reference: cpp/src/arrow/compute/exec/expression.h:42 and expression.cc —
 Bind (kernel resolution), ExecuteScalarExpression (:513), constant folding
 + SimplifyWithGuarantee (:963, the partition-pruning engine).
 
-TPU notes: an expression executed against a RecordBatch is pure function
+Device notes: an expression executed against a RecordBatch is pure function
 composition over pytrees, so `jax.jit(expr.execute)` gives whole-expression
 fusion — the role Gandiva's LLVM codegen plays in the reference
 (gandiva/llvm_generator.h:93: one fused per-batch loop) falls out of XLA

@@ -4,9 +4,9 @@ Reference: cpp/src/arrow/flight/ — gRPC service (format/Flight.proto:33:
 Handshake/ListFlights/GetFlightInfo/DoGet/DoPut/DoExchange/DoAction) with
 zero-copy IPC payload serialization (serialization_internal.cc:192).
 
-Position in the TPU design (SURVEY.md §2 "Distributed exchange"): Flight
+Position in the device design (SURVEY.md §2 "Distributed exchange"): Flight
 is the *host-level / DCN* data plane — cross-host ingest and egress of
-tables. On-slice exchange never touches it (that's the compiled ICI
+tables. On-slice exchange never touches it (that's the compiled
 all_to_all in parallel/shuffle.py). The gRPC transport + IPC framing come
 from pyarrow.flight (the same C++ stack the reference ships); this module
 adapts engine tables and adds a ready-to-run table server.

@@ -1,7 +1,7 @@
 """Native HDFS filesystem over the WebHDFS REST API — no libhdfs/JNI.
 
 Reference: cpp/src/arrow/filesystem/hdfs.cc wraps libhdfs through JNI
-(a JVM in-process). That design has no TPU-host analogue worth keeping:
+(a JVM in-process). That design has no analogue worth keeping here:
 Hadoop clusters expose the same namenode/datanode operations over HTTP
 (WebHDFS, hdfs-default.xml dfs.webhdfs.enabled=true), so this client
 speaks the REST protocol directly with http.client — the same

@@ -6,7 +6,7 @@ CodeGenExprValue :192), with Projector materializing outputs and Filter
 emitting a SelectionVector of passing rows (projector.h:41, filter.h:66,
 selection_vector.h:32).
 
-On TPU the entire Gandiva machinery collapses into `jax.jit`: an
+On the device the entire Gandiva machinery collapses into `jax.jit`: an
 Expression executed over a RecordBatch pytree traces to one XLA program,
 and XLA's fusion pass plays the role of the LLVM loop fuser — including
 the validity-bitmap locals Gandiva tracks explicitly (llvm_generator.h:

@@ -3,7 +3,7 @@
 The ingest stance from SURVEY.md §3.4a: reuse Arrow host libraries for
 stage-1 decode (CSV/Parquet/IPC); the device pipeline starts at "RecordBatch
 of fixed-width/dict columns". This module is that boundary: it normalizes
-arbitrary Arrow arrays into the engine's TPU-friendly physical forms
+arbitrary Arrow arrays into the engine's device-friendly physical forms
 (fixed-width data + bool masks + dictionary codes) and back.
 
 Normalizations applied at ingest (cf. SURVEY.md §2.5 closing note):
@@ -211,8 +211,7 @@ def column_from_arrow(arr) -> Column:
         np_arr.astype(np.dtype(logical.physical_dtype()), copy=False))
     bits = None
     if logical.kind == "float64":
-        # host-side int64 bit view (free): pallas movement kernels need
-        # bits and the on-device f64->bits direction is not lowerable
+        # host-side int64 bit view (free); see Column.bits
         bits = jnp.asarray(np_arr.view(np.int64))
     return Column(jnp.asarray(np_arr), logical,
                   validity=_validity_from_arrow(arr), bits=bits)

@@ -41,8 +41,6 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-import flatbuffers
-
 from .. import dtypes as dt
 from ..column import (Column, Dictionary, ListColumn, StructColumn,
                       UnionColumn)
@@ -50,6 +48,14 @@ from ..errors import Invalid
 from ..table import RecordBatch
 
 COMP_LZ4, COMP_ZSTD = 0, 1
+
+
+def _builder(size: int):
+    """A flatbuffers Builder. The package is imported on first write:
+    reading IPC and the rest of the engine do not need it."""
+    import flatbuffers
+
+    return flatbuffers.Builder(size)
 
 
 def _codec(comp_id: int):
@@ -607,7 +613,7 @@ def serialize_batch_parts(batch: RecordBatch, compression=None):
         else:
             _flatten_array(c, nodes, all_bufs)
     chunks, descs, blen = _body_chunks(all_bufs, cid)
-    b = flatbuffers.Builder(1024)
+    b = _builder(1024)
     hdr = _build_recordbatch_header(b, batch.num_rows, nodes, descs, cid)
     meta = _finish_message(b, HDR_RECORDBATCH, hdr, blen)
     return meta, chunks, blen
@@ -630,7 +636,7 @@ def _serialize_dictionary(dict_id: int, values: np.ndarray
     np.cumsum([len(e) for e in enc], out=offsets[1:])
     data = b"".join(enc)
     body, descs = _body_from_buffers([b"", offsets.tobytes(), data])
-    b = flatbuffers.Builder(256)
+    b = _builder(256)
     rb = _build_recordbatch_header(b, len(enc), [(len(enc), 0)], descs)
     # DictionaryBatch: id(0) data(1) isDelta(2)
     b.StartObject(3)
@@ -689,7 +695,7 @@ def write_stream(sink, batch_or_batches, compression=None,
     if first is None:
         raise Invalid("write_stream: no batches and no schema")
     dict_ids = _dict_columns(first)
-    b = flatbuffers.Builder(1024)
+    b = _builder(1024)
     schema_off = _build_schema(b, first, dict_ids)
     _write_encapsulated(sink, _finish_message(b, HDR_SCHEMA, schema_off, 0))
     for name, did in dict_ids.items():
@@ -722,7 +728,7 @@ def write_file(sink, batch_or_batches, compression=None,
         total = _write_encapsulated(sink, meta, body)
         return (off, total - blen, blen)
 
-    b = flatbuffers.Builder(1024)
+    b = _builder(1024)
     schema_off = _build_schema(b, first, dict_ids)
     schema_meta = _finish_message(b, HDR_SCHEMA, schema_off, 0)
     emit(schema_meta, b"")
@@ -736,7 +742,7 @@ def write_file(sink, batch_or_batches, compression=None,
         batch_blocks.append(emit(meta, chunks))
     sink.write(struct.pack("<II", CONTINUATION, 0))
 
-    fb = flatbuffers.Builder(1024)
+    fb = _builder(1024)
     fschema = _build_schema(fb, first, dict_ids)
 
     def blocks_vec(blocks):

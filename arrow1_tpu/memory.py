@@ -4,7 +4,7 @@ Reference: cpp/src/arrow/memory_pool.h — MemoryPool (bytes_allocated /
 max_memory), LoggingMemoryPool (:114), ProxyMemoryPool (:138), pluggable
 default via ARROW_DEFAULT_MEMORY_POOL (memory_pool.cc:103).
 
-TPU stance: DEVICE memory belongs to PJRT/XLA (no user allocator hook —
+Device stance: DEVICE memory belongs to PJRT/XLA (no user allocator hook —
 `runtime.device_memory_stats` exposes its counters). What this module
 owns is the HOST plane the engine allocates itself: builder buffers, IPC
 assembly, native-parser results. Those paths allocate through a

@@ -52,17 +52,20 @@ def q6_forecast(lineitem, min_discount: float = 0.02,
             .to_batch())
 
 
-def q1_distributed(lineitem, mesh=None, ship_cutoff_days: int = 10000):
+def q1_distributed(lineitem, mesh=None, ship_cutoff_days: int = 10000,
+                   shuffle_cap=None):
     """Q1 as ONE distributed shard_map program over the mesh (config 5:
     the whole filter -> group_by -> sort stage is a single dispatch;
-    shuffles ride ICI inside the program)."""
+    shuffles are all_to_alls inside the program). ``shuffle_cap`` bounds
+    the partial groups one shard sends another."""
     from ..exec.dist_compiled import DistPipelineBuilder
 
     pipe = (DistPipelineBuilder(mesh)
             .filter(field("l_shipdate_days") <= ship_cutoff_days)
             .group_by(["l_returnflag"],
                       [("l_quantity", "sum"), ("l_extendedprice", "sum"),
-                       ("l_quantity", "count")])
+                       ("l_quantity", "count")],
+                      shuffle_cap=shuffle_cap)
             .sort([("l_returnflag", "ascending")])
             .compile())
     return pipe(lineitem)

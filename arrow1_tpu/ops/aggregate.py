@@ -5,7 +5,7 @@ Reference: cpp/src/arrow/compute/kernels/aggregate_basic.cc,
 aggregate_var_std.cc, aggregate_mode.cc, aggregate_quantile.cc,
 aggregate_tdigest.cc. The reference kernels are consume/merge/finalize
 state machines (aggregate_internal.h:52) so chunked inputs reduce in
-bounded memory; on TPU a whole HBM-resident column reduces in one fused
+bounded memory; on the device a whole HBM-resident column reduces in one fused
 XLA reduction, and chunk-merging happens at the streaming-executor level
 instead (exec/streaming.py) using the same merge algebra (sum of partials,
 min of partials, Welford/Chan merge for variance).
@@ -86,8 +86,8 @@ class QuantileOptions:
 @dataclasses.dataclass
 class TDigestOptions:
     """Reference: api_aggregate.h:160. delta/buffer_size retained for
-    signature parity; the TPU kernel computes the exact quantile (a full
-    sort is cheaper on TPU than a serial tdigest merge, and exact is a
+    signature parity; the kernel computes the exact quantile (a full
+    sort is cheaper on the device than a serial tdigest merge, and exact is a
     valid tdigest refinement)."""
 
     q: Sequence[float] = (0.5,)
@@ -743,7 +743,7 @@ register_function("kurtosis", "aggregate", 1, SkewOptions)(_kurtosis_exec)
 
 def _approximate_median_exec(args, options: ScalarAggregateOptions, ctx):
     """Reference: approximate_median (t-digest backed). The exact median
-    is a valid approximation — we sort (the TPU primitive) instead of
+    is a valid approximation — we sort (a device primitive) instead of
     streaming a digest."""
     (col,) = args
     col = _drop_nan(_as_float_if_decimal(col))

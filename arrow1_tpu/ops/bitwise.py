@@ -1,7 +1,7 @@
 """Bitwise kernels: bit_wise_and/or/xor/not + shift_left/right (+checked).
 
 Reference: compute/kernels/scalar_arithmetic.cc bitwise section. Integer
-VPU maps. Shift semantics match the reference: an out-of-range shift
+elementwise maps. Shift semantics match the reference: an out-of-range shift
 amount (< 0 or >= bit width) leaves the operand unchanged in the
 unchecked variant and raises in the checked one.
 """

@@ -8,7 +8,7 @@ checked arithmetic kernels.
 
 String<->numeric casts run on the *dictionary values* host-side (a few
 unique strings) and gather on device — the dictionary-encode-at-ingest
-design means a cast never touches per-row bytes on the TPU.
+design means a cast never touches per-row bytes on the device.
 """
 
 from __future__ import annotations

@@ -3,7 +3,7 @@ inverse_permutation.
 
 Reference: compute/kernels/scalar_if_else.cc (CaseWhen/Choose) +
 vector_replace.cc (ReplaceWithMask) + vector_swizzle.cc
-(InversePermutation). All lane-parallel selects/gathers — the TPU form of
+(InversePermutation). All lane-parallel selects/gathers — the device form of
 branching.
 """
 

@@ -3,7 +3,7 @@ pairwise_diff, fill_null_forward/backward.
 
 Reference: compute/kernels/vector_cumulative_ops.cc + vector_pairwise.cc +
 vector_replace.cc (FillNullForward/Backward). All are scans — the
-TPU-native form is jnp.cumsum/cummax/associative_scan; null semantics
+device-native form is jnp.cumsum/cummax/associative_scan; null semantics
 follow the reference exactly:
 
 - skip_nulls=False (default): the first null poisons every later slot

@@ -2,7 +2,7 @@
 
 Reference: cpp/src/arrow/util/basic_decimal.{h,cc} — BasicDecimal128 as
 (high int64, low uint64) with carry-propagating add/sub and lexicographic
-compare. The TPU storage is the same two limbs as separate arrays
+compare. The device storage is the same two limbs as separate arrays
 (column.py: data = low limb, data2 = high limb), so the kernels are plain
 vector ops: no __int128, no per-element loops.
 
@@ -234,7 +234,7 @@ def _div128(nlo, nhi, dlo, dhi):
     """Unsigned 128/128 restoring division -> truncated quotient.
 
     128 static shift-subtract steps (jax.lax.fori_loop) over the whole
-    vector — no data-dependent control flow, so it jits for TPU.
+    vector — no data-dependent control flow, so it jits for the device.
     """
     import jax
 

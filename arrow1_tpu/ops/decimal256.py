@@ -7,7 +7,7 @@ rules in compute/kernels/scalar_arithmetic.cc (precision cap 76).
 Storage (interop.py): data = limb0 (int64 bit view), data2 = [n, 3]
 int64 = limbs 1..3. All kernels below are straight-line vector ops or a
 static 256-step fori_loop (divide) — no data-dependent control flow, so
-everything jits for TPU.
+everything jits for the device.
 """
 
 from __future__ import annotations

@@ -5,13 +5,13 @@ row-serializes keys and feeds an unordered_map to assign dense group ids
 (:313-404), then GroupedAggregators scatter-update per-group state
 (:466-700), driven by the eager GroupBy loop (:890-966).
 
-TPU redesign (SURVEY.md §3.2 translation note):
+Device redesign (SURVEY.md §3.2 translation note):
 - key encoding -> uint64 key normalization (shared with sort/unique);
   multi-column keys stay a *list* of keys — no row serialization needed
   because grouping_by_keys composes them lexicographically.
 - unordered_map -> sort-based dense group ids (eager path, exact
-  first-appearance semantics) or the Pallas linear-probe table
-  (kernels/hashtable.py) in fused pipelines.
+  first-appearance semantics) or sorted-space segments in fused
+  pipelines (ops/padded.py).
 - GroupedAggregator::Consume -> one fused segment scatter per aggregate
   (`zeros(num_groups).at[group_ids].add/min/max`), which XLA lowers to a
   single HBM pass.
@@ -37,11 +37,6 @@ what, so perf work lands in the right place):
   parallel/distributed.py    eager multi-chip op (one shard_map per op);
   `dist_group_by`            superseded by dist_compiled for pipelines,
                              kept for single-op use + as its oracle.
-  kernels/segsum{,2}.py      Pallas MXU one-hot variant for G <= ~4096
-                             (278 M rows/s at G=1K); an optional
-                             ExecContext fast path, not a default route
-                             — the sorted-space form won the q1 A/B
-                             (benchmarks/r3/profile_q1.log).
 """
 
 from __future__ import annotations
@@ -256,8 +251,7 @@ _register_hash_kernels()
 
 def _grouped_seg(col: Column, fn: str, g, sorted_planes=None):
     """Sorted-space grouped aggregate (scan + boundary gathers — no
-    scatters; int64 scatter is ~6 M rows/s on this TPU stack while the
-    scan path is bandwidth-shaped). Falls back to the scatter form for
+    scatters). Falls back to the scatter form for
     aggregates without a segment formulation.
 
     `sorted_planes=(data, validity-or-None)` means the column's planes
@@ -583,174 +577,6 @@ def _grouped_list(col: Column, g, distinct: bool):
     return ListColumn(offsets, child, dt.list_(col.dtype))
 
 
-_MXU_AGGS = frozenset(["sum", "count", "mean"])
-
-
-def _segsum2_mode() -> str:
-    """MXU grouped-aggregation fast path gate (mirrors _pallas_filter_mode):
-    on for TPU backends, A1T_SEGSUM=off|interpret overrides."""
-    import os
-
-    mode = os.environ.get("A1T_SEGSUM", "auto")
-    if mode in ("off", "interpret"):
-        return mode
-    import jax
-
-    return "on" if jax.default_backend() == "tpu" else "off"
-
-
-def _mxu_group_by(batch: RecordBatch, keys: Sequence[str],
-                  aggregates: Sequence[Tuple[str, str]]):
-    """Sort-free group-by for a single dense-range integer/dict key and
-    sum/count/mean aggregates: dense gid = key - min(key), per-group
-    counts + exact mod-2^64 sums via the two-level one-hot MXU kernel
-    (kernels/segsum2.py). Groups emit in key order — the oracle
-    (hash_aggregate.cc GrouperImpl) order is insertion-dependent and
-    callers treat group-by output as unordered rows.
-
-    Returns a RecordBatch, or None when the shape doesn't fit (caller
-    falls back to the sorted-space path)."""
-    mode = _segsum2_mode()
-    if mode == "off" or len(keys) != 1:
-        return None
-    from ..kernels.segsum2 import (MAX_G, ColPlanes, plan_planes,
-                                   segment_sums_mxu)
-    import jax
-
-    kc = batch.column(keys[0])
-    if type(kc) is not Column or kc.data2 is not None:
-        return None
-    if kc.dictionary is None and not kc.dtype.is_integer:
-        return None
-    vals_needed = []   # unique value-column names needing sums
-    for col_name, fn in aggregates:
-        if fn not in _MXU_AGGS:
-            return None
-        c = batch.column(col_name)
-        if type(c) is not Column or c.data2 is not None or \
-                c.dictionary is not None:
-            return None
-        if fn in ("sum", "mean"):
-            if not c.dtype.is_integer:
-                return None
-            if col_name not in vals_needed:
-                vals_needed.append(col_name)
-    n = kc.length
-    if n == 0:
-        return None
-    kvalid = kc.validity
-    kdata = kc.data
-
-    # one fused device reduction: key min/max + per-value-column min/max
-    def ranges(kdata, kvalid, vcols):
-        kd = kdata.astype(jnp.int64)
-        if kvalid is not None:
-            kmin = jnp.min(jnp.where(kvalid, kd, jnp.int64(2**62)))
-            kmax = jnp.max(jnp.where(kvalid, kd, -jnp.int64(2**62)))
-            anyk = jnp.any(kvalid)
-        else:
-            kmin, kmax, anyk = jnp.min(kd), jnp.max(kd), jnp.bool_(True)
-        outs = [kmin, kmax, anyk]
-        for data, valid in vcols:
-            d = data.astype(jnp.int64)
-            if valid is not None:
-                outs.append(jnp.min(jnp.where(valid, d, jnp.int64(2**62))))
-                outs.append(jnp.max(jnp.where(valid, d, -jnp.int64(2**62))))
-            else:
-                outs.append(jnp.min(d))
-                outs.append(jnp.max(d))
-        return outs
-
-    vcols = [(batch.column(nm).data, batch.column(nm).validity)
-             for nm in vals_needed]
-    if any(c[0].dtype == jnp.uint64 for c in vcols) or \
-            kdata.dtype == jnp.uint64:
-        return None  # int64-domain reductions would mangle large u64
-    red = jax.device_get(jax.jit(ranges)(kdata, kvalid, vcols))
-    kmin, kmax, any_valid_key = int(red[0]), int(red[1]), bool(red[2])
-    if not any_valid_key:
-        kmin = kmax = 0
-    has_null_key = kvalid is not None
-    R = kmax - kmin + 1
-    G = -((R + (1 if has_null_key else 0)) // -128) * 128
-    if G > MAX_G:
-        return None
-    gid = (kdata.astype(jnp.int64) - kmin).astype(jnp.int32)
-    if kvalid is not None:
-        gid = jnp.where(kvalid, gid, jnp.int32(R))
-
-    cols = []
-    biases = {}
-    for i, nm in enumerate(vals_needed):
-        vmin, vmax = int(red[3 + 2 * i]), int(red[4 + 2 * i])
-        c = batch.column(nm)
-        if c.validity is not None and vmin > vmax:
-            vmin = vmax = 0  # no valid values anywhere
-        bias, nplanes = plan_planes(vmin, vmax)
-        biases[nm] = bias
-        vu = c.data.astype(jnp.int64).astype(jnp.uint64) - \
-            jnp.uint64(bias % (1 << 64))
-        lo = jax.lax.bitcast_convert_type(
-            (vu & jnp.uint64(0xFFFFFFFF)).astype(jnp.uint32), jnp.int32)
-        words = (lo,)
-        if nplanes > 4:
-            hi = jax.lax.bitcast_convert_type(
-                (vu >> jnp.uint64(32)).astype(jnp.uint32), jnp.int32)
-            words = (lo, hi)
-        cols.append(ColPlanes(words, c.validity, nplanes))
-    # count-only columns not already carried
-    cnt_only = []
-    for col_name, fn in aggregates:
-        if fn == "count" and col_name not in vals_needed and \
-                col_name not in cnt_only:
-            cnt_only.append(col_name)
-            c = batch.column(col_name)
-            cols.append(ColPlanes((), c.validity, 0))
-    col_index = {nm: i for i, nm in enumerate(vals_needed + cnt_only)}
-
-    occ, results = segment_sums_mxu(gid, cols, G,
-                                    interpret=(mode == "interpret"))
-    present = occ > 0
-    ng = int(jnp.sum(present))
-    (idx,) = jnp.nonzero(present, size=ng, fill_value=0)
-
-    out_cols, out_names = [], []
-    for col_name, fn in aggregates:
-        c = batch.column(col_name)
-        cnt, s = results[col_index[col_name]]
-        cnt_g = cnt[idx]
-        if fn == "count":
-            out_cols.append(Column(cnt_g, dt.int64))
-        else:
-            total = s + cnt.astype(jnp.uint64) * \
-                jnp.uint64(biases[col_name] % (1 << 64))
-            signed = jax.lax.bitcast_convert_type(total, jnp.int64)[idx]
-            gv = collapse_validity(cnt_g > 0)
-            if fn == "sum":
-                out_t = _sum_output_type(c.dtype)
-                data = (signed if out_t.is_signed_integer
-                        else total[idx])
-                out_cols.append(Column(data, out_t, validity=gv))
-            else:  # mean = exact int sum / count, double
-                m = signed.astype(jnp.float64) / \
-                    jnp.maximum(cnt_g, 1).astype(jnp.float64)
-                out_cols.append(Column(m, dt.float64, validity=gv))
-        out_names.append(f"{col_name}_{fn}")
-    kd64 = kmin + idx.astype(jnp.int64)
-    kvalidity = None
-    if has_null_key:
-        kvalidity = collapse_validity(idx != R)
-    if kc.dictionary is not None:
-        key_out = Column(kd64.astype(kc.data.dtype), kc.dtype,
-                         validity=kvalidity, dictionary=kc.dictionary)
-    else:
-        key_out = Column(kd64.astype(kc.data.dtype), kc.dtype,
-                         validity=kvalidity)
-    out_names.append(keys[0])
-    out_cols.append(key_out)
-    return RecordBatch(tuple(out_cols), tuple(out_names))
-
-
 def group_by(batch: RecordBatch, keys: Sequence[str],
              aggregates: Sequence[Tuple[str, str]]) -> RecordBatch:
     """Eager group-by (reference: internal::GroupBy hash_aggregate.cc:890;
@@ -759,16 +585,12 @@ def group_by(batch: RecordBatch, keys: Sequence[str],
     Output: aggregate columns named "{col}_{fn}", then key columns, groups
     in first-appearance order (GrouperImpl insertion order semantics).
     Aggregation runs in sorted space (scan + boundary gathers) — see
-    _grouped_seg — or, for dense-range integer keys with sum/count/mean
-    aggregates, sort-free on the MXU (_mxu_group_by).
+    _grouped_seg.
     """
     from .hash import grouping_full
 
     if not keys:
         raise Invalid("group_by requires at least one key")
-    fast = _mxu_group_by(batch, keys, aggregates)
-    if fast is not None:
-        return fast
     norm: List = []
     for k in keys:
         norm.extend(normalize_sort_key(batch.column(k)))

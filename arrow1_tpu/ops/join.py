@@ -8,7 +8,7 @@ against pyarrow Table.join as oracle: null keys match nothing; every
 probe-side match pair is emitted; outer variants emit unmatched rows with
 nulls on the other side.
 
-TPU design:
+Device design:
 1. Multi-column keys collapse to one dense id per row by grouping the
    *union* of both sides' key columns (grouping_by_keys) — id equality ==
    full key equality, so the join core only ever sees one uint64 key.
@@ -134,10 +134,9 @@ def _hash_probe_ranges(probe_u64, build_u64, build_valid):
 
     bits = table_bits_for(build_u64.shape[0])
     if build_valid is None:
-        # flat PackedTable build (no padded u64 table arrays — the
-        # [2^bits, ways] form tiles (8,128) and pads 16x on TPU) +
-        # single-gather probe in <=4M-row chunks (the windowed-gather
-        # temp is [chunk, 4*ways])
+        # flat PackedTable build (kernels/hashtable.py) + single-gather
+        # probe in <=4M-row chunks (the windowed-gather temp is
+        # [chunk, 4*ways])
         while True:
             order, pt, ovf = join_build_packed(build_u64, bits=bits)
             if int(ovf) == 0:
@@ -216,8 +215,8 @@ def join_indices(left: RecordBatch, right: RecordBatch,
         build_order, lo, counts = _hash_probe_ranges(lids, rids, rvalid)
     else:
         # build side = right, sorted by key id (stable -> build-order
-        # within key); probe ranges via merged sort-merge (searchsorted's
-        # binary-search gathers are a TPU pathology — BENCH_NOTES.md)
+        # within key); probe ranges via merged sort-merge (no
+        # searchsorted binary-search gathers)
         if rvalid is not None:
             # null-key build rows can never match: paint with an id no
             # probe has (ids are dense int32 — the paint cannot collide)
@@ -416,7 +415,7 @@ def join_asof(left: RecordBatch, right: RecordBatch, on: str,
     — implemented as the backward join on negated `on`). Ties at equal
     `on` match. All left rows are kept; unmatched rows get nulls.
 
-    TPU shape: one merged stable sort by (by-ids, on) with right rows
+    Device shape: one merged stable sort by (by-ids, on) with right rows
     preceding left at equal keys, then a running-max carry of right
     positions — no per-row search loops (reference designed-from-spec:
     Acero's asof_join node).

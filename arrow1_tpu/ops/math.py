@@ -3,7 +3,7 @@ floor/ceil/trunc/round.
 
 Reference: the scalar_arithmetic.cc math additions of the 5.0 cycle
 (ln/log2/log10/log1p landed in ARROW-12747 within this snapshot's era)
-plus the rounding family. All are trivial VPU maps with
+plus the rounding family. All are trivial elementwise maps with
 NullHandling::INTERSECTION; integers promote to float64 like the
 reference's generated float kernels.
 """

@@ -3,7 +3,7 @@ make_struct.
 
 Reference: cpp/src/arrow/compute/kernels/scalar_nested.cc (+
 vector_nested.cc). List columns are offsets+child (column.py ListColumn);
-the exploded "parent indices" view is the TPU-friendly alignment for
+the exploded "parent indices" view is the device-friendly alignment for
 per-value work (SURVEY.md §2.5: nested-offsets normalization).
 """
 
@@ -104,7 +104,7 @@ class MakeStructOptions:
 def _make_struct_exec(args, options: MakeStructOptions, ctx):
     """Assemble columns into a struct (reference: scalar_nested.cc
     "make_struct" / ProjectOptions api_scalar.h:139). Structs are
-    represented as a RecordBatch (column-per-field — the TPU layout is
+    represented as a RecordBatch (column-per-field — the device layout is
     identical to a struct array's children)."""
     field_names = list(options.field_names) if options and \
         options.field_names else [str(i) for i in range(len(args))]

@@ -3,7 +3,7 @@ vector_random.cc).
 
 Run-end-encoded data is represented as a RecordBatch{run_ends: int32,
 values} — structurally identical to the reference's REE array (child
-run_ends + values), without a dedicated wrapper type. TPU note: REE is a
+run_ends + values), without a dedicated wrapper type. Device note: REE is a
 host/storage format; compute always runs on the decoded dense form.
 """
 
@@ -95,7 +95,7 @@ class RandomOptions:
 
 
 def _random_exec(args, options: RandomOptions, ctx):
-    """Uniform [0,1) float64 (reference: vector_random.cc). TPU-native:
+    """Uniform [0,1) float64 (reference: vector_random.cc). device-native:
     jax threefry PRNG — deterministic for an integer initializer."""
     options = options or RandomOptions()
     n = int(options.length)

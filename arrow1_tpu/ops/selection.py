@@ -2,7 +2,7 @@
 
 Reference: cpp/src/arrow/compute/kernels/vector_selection.cc. The reference
 filter walks the selection bitmap with a BitBlockCounter and memcpys
-all-set runs (:611-760); the TPU redesign is a single XLA compaction:
+all-set runs (:611-760); the device redesign is a single XLA compaction:
 ``indices = nonzero(mask)`` (a fused cumsum+scatter on device) followed by
 one gather per column. All per-type specializations of the reference's
 registration table (:2130-2191) collapse to {fixed-width gather,
@@ -156,19 +156,17 @@ register_function("take", "vector", 2, TakeOptions, aliases=["array_take"])(
 
 # ---- packed row gather ----
 #
-# Measured on TPU (benchmarks/r2: gather_row6_10M 74.1 ms vs
-# gather_1word_10M 75.2 ms): an XLA row gather over a packed [n, W] i32
-# matrix moves W words per index for the price of one — random-access
-# latency, not bytes, bounds the gather. So a multi-column take packs all
-# fixed-width planes into one matrix, gathers rows once, and unpacks.
-# Pack/unpack are sequential streams (~memory-bound), far cheaper than
-# the extra gathers they replace.
+# A multi-column take packs all fixed-width planes into one [n, W] i32
+# matrix, gathers rows once, and unpacks: a random gather is bound by
+# access latency more than by bytes, so one W-word row gather replaces W
+# one-word gathers. Pack/unpack are sequential streams. Whether this
+# beats per-column gathers on the GPU is not measured yet.
 
 def _word_planes(x):
     """[n] / [n, m] array -> ([n, w] i32 plane, decoder) or None.
 
-    Split by bit width; 64-bit via bitcast i64->i32x2 (lowerable on this
-    TPU stack; f64->i64 is NOT — callers pass the ingest bit view)."""
+    Split by bit width; 64-bit via bitcast i64->i32x2. f64 columns pass
+    their ingest bit view (``Column.bits``)."""
     if x.ndim == 1:
         x2 = x[:, None]
     else:
@@ -226,7 +224,6 @@ def gather_batch_packed(batch: RecordBatch, idx, extra_validity=None
         if (not isinstance(c, Column)
                 or (c.dtype.kind == "float64" and c.bits is None)):
             # nested columns, and f64 without an ingest bit view
-            # (f64->i64 bitcast is not lowerable on this TPU stack)
             fallback[pos] = take_column(c, idx, extra_validity)
             continue
         src = c.bits if c.dtype.kind == "float64" else c.data
@@ -301,8 +298,7 @@ def filter_indices_padded(selected: jnp.ndarray):
     never reads past count).
 
     This is the mask -> prefix-sum -> scatter design from SURVEY.md §7
-    expressed as XLA ops (cumsum + scatter fuse on TPU); the Pallas
-    tiled variant lives in kernels/compaction.py for the hot path."""
+    expressed as plain XLA ops (cumsum, scatter)."""
     n = selected.shape[0]
     count = jnp.sum(selected, dtype=jnp.int32)
     positions = cumsum_blocked(selected, dtype=jnp.int32) - 1
@@ -311,90 +307,6 @@ def filter_indices_padded(selected: jnp.ndarray):
     indices = jnp.full(n, n, dtype=jnp.int32)
     indices = indices.at[scatter_to].set(rows, mode="drop")
     return indices, count
-
-
-def _pallas_filter_mode() -> str:
-    """"tpu" fast path by default on TPU backends; A1T_PALLAS=off|interpret
-    overrides (interpret exercises the kernel path in CPU tests)."""
-    import os
-
-    mode = os.environ.get("A1T_PALLAS", "auto")
-    if mode == "off":
-        return "off"
-    if mode == "interpret":
-        return "interpret"
-    import jax
-
-    return "on" if jax.default_backend() == "tpu" else "off"
-
-
-def _compactable(col) -> bool:
-    from ..column import ListColumn
-
-    if isinstance(col, ListColumn):
-        return False
-    if col.dtype.kind == "float64":
-        # only with an ingest-time bit view (TOOLCHAIN_NOTES.md)
-        return col.bits is not None
-    return True
-
-
-def _filter_pallas(values, selected, mask_validity, interpret: bool):
-    """Materializing filter through the butterfly compaction kernel
-    (kernels/compaction_v4.py): all column payloads + validity masks ride
-    one kernel invocation as 32-bit word streams."""
-    from ..kernels.compaction_v4 import compact
-
-    cols = list(values.columns) if isinstance(values, RecordBatch) \
-        else [values]
-    streams = []
-    layout = []  # (col_index, kind) kinds: data|bits|validity|maskv
-    for i, c in enumerate(cols):
-        src = c.bits if (c.dtype.kind == "float64" and
-                         c.bits is not None) else c.data
-        streams.append(src)
-        layout.append((i, "bits" if src is not c.data else "data"))
-        if c.validity is not None:
-            streams.append(c.validity)
-            layout.append((i, "validity"))
-    if mask_validity is not None:
-        streams.append(mask_validity)
-        layout.append((-1, "maskv"))
-    # `compact` pads mask/cols to the tile multiple internally (pad rows
-    # unselected, so the compacted prefix is unaffected)
-    outs, count = compact(selected, tuple(streams), interpret=interpret)
-    count = int(count)
-    per_col_data = {}
-    per_col_valid = {}
-    extra_valid = None
-    per_col_bits = {}
-    for (ci, kind), out in zip(layout, outs):
-        if kind == "data":
-            per_col_data[ci] = out[:count]
-        elif kind == "bits":
-            per_col_bits[ci] = out[:count]
-        elif kind == "validity":
-            per_col_valid[ci] = out[:count]
-        else:
-            extra_valid = out[:count]
-    out_cols = []
-    for i, c in enumerate(cols):
-        validity = per_col_valid.get(i)
-        if extra_valid is not None:
-            validity = extra_valid if validity is None \
-                else (validity & extra_valid)
-        if i in per_col_bits:
-            bits = per_col_bits[i]
-            data = jax.lax.bitcast_convert_type(bits, jnp.float64)
-            out_cols.append(Column(data, c.dtype, validity=validity,
-                                   dictionary=c.dictionary, bits=bits))
-        else:
-            out_cols.append(Column(per_col_data[i], c.dtype,
-                                   validity=validity,
-                                   dictionary=c.dictionary))
-    if isinstance(values, RecordBatch):
-        return RecordBatch(tuple(out_cols), values.names)
-    return out_cols[0]
 
 
 def _filter_exec(args, options: FilterOptions, ctx):
@@ -408,13 +320,6 @@ def _filter_exec(args, options: FilterOptions, ctx):
     if isinstance(values, Column) and values.length != mask.length:
         raise Invalid(f"filter: length mismatch {values.length} vs {mask.length}")
     selected, mask_validity = _effective_mask(mask, options.null_selection_behavior)
-
-    mode = _pallas_filter_mode()
-    if mode != "off":
-        cols = values.columns if isinstance(values, RecordBatch) else [values]
-        if cols and all(_compactable(c) and c.data2 is None for c in cols):
-            return _filter_pallas(values, selected, mask_validity,
-                                  interpret=(mode == "interpret"))
 
     # two-phase: host-sync the count, then statically-shaped compaction
     count = int(jnp.sum(selected))

@@ -1,7 +1,7 @@
 """Set-lookup kernels: is_in / index_in.
 
 Reference: cpp/src/arrow/compute/kernels/scalar_set_lookup.cc — MemoTable
-built from the value set, probed per row. TPU redesign: the value set is
+built from the value set, probed per row. device redesign: the value set is
 small and host-known, so normalize it to sorted device keys and probe with
 vectorized binary search (searchsorted) — no hash table needed; dict-string
 columns probe by code remap.

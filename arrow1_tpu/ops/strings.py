@@ -1,8 +1,8 @@
 """String kernels (reference: cpp/src/arrow/compute/kernels/scalar_string.cc,
 ~40 registered functions — the full list in SURVEY.md §2.3).
 
-TPU design: per-row byte processing has no place on a systolic-array
-machine. Because every string column is dictionary-encoded at ingest, a
+Device design: per-row byte processing has no place on a data-parallel
+device. Because every string column is dictionary-encoded at ingest, a
 string kernel runs its transform ONCE PER UNIQUE VALUE — the ASCII/byte
 family natively on device (strings_device.py padded byte matrices), the
 unicode/regex tail on the host (strings_host.py, pure Python str/re/

@@ -1,7 +1,7 @@
 """Device-native string byte kernels (the ASCII/byte family).
 
 Reference: cpp/src/arrow/compute/kernels/scalar_string.cc — per-row byte
-loops. TPU-native form: dictionary values become one padded uint8 matrix
+loops. device-native form: dictionary values become one padded uint8 matrix
 [n_unique, max_len] + a length vector, and transforms/predicates run as
 vectorized jnp ops over the whole matrix at once (lane-parallel byte
 crunching, tiny gathers only for per-row shifts). pyarrow stays only for

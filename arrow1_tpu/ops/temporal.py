@@ -3,7 +3,7 @@
 Reference: cpp/src/arrow/compute/kernels/scalar_cast_temporal.cc
 (strptime via vendored datetime) and the temporal component kernels.
 
-TPU design: strptime/strftime are string<->time conversions -> run once
+Device design: strptime/strftime are string<->time conversions -> run once
 per unique dictionary value on the host (like ops/strings.py). Component
 extraction (year/month/day/...) is pure int64 arithmetic on epoch values
 -> device math using Howard Hinnant's civil-from-days algorithm (the same
@@ -116,7 +116,7 @@ register_function("strftime", "scalar", 1, StrftimeOptions)(_strftime_exec)
 def _civil_from_days(days):
     """days since 1970-01-01 -> (year, month, day); Hinnant's algorithm
     (reference vendors it at arrow/vendored/datetime/date.h) — pure int
-    vector math, runs on the VPU."""
+    vector math, runs as elementwise device code."""
     z = days + 719468
     era = jnp.where(z >= 0, z, z - 146096) // 146097
     doe = z - era * 146097

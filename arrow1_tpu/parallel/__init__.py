@@ -3,7 +3,7 @@ operators.
 
 Replaces the reference's process-level distribution story (Flight RPC
 gRPC streaming, arrow/flight/ — which ships *mechanism only*, no
-distributed planner) with compiled ICI collectives: tables are row-sharded
+distributed planner) with compiled collectives: tables are row-sharded
 over a `jax.sharding.Mesh` data axis, repartitioning is
 `shard_map` + `lax.all_to_all`, and the distributed operators compose the
 padded device primitives from ops/padded.py (SURVEY.md §2 parallelism

@@ -7,7 +7,7 @@ Composition pattern (one jitted shard_map program per operator):
 
 The reference has no distributed planner (SURVEY.md §2: Flight ships
 mechanism only); these operators are the BASELINE north-star design:
-hash-partitioned tables, ICI all-to-all exchange, per-shard vectorized
+hash-partitioned tables, all-to-all exchange, per-shard vectorized
 kernels, padded static shapes throughout so the entire distributed
 pipeline is one XLA computation per operator.
 

@@ -2,7 +2,7 @@
 
 A table is distributed by sharding every column array over the mesh's
 "x" (data) axis — rows are range-partitioned across devices, the
-TPU-native analogue of the reference's one-fragment-per-scan-task
+device-native analogue of the reference's one-fragment-per-scan-task
 distribution (dataset/scanner.cc:62). Hash partitioning (key affinity) is
 established on demand by the shuffle, not at ingest.
 """

@@ -1,15 +1,15 @@
 """Multi-host bring-up helpers.
 
 Reference analogue: Flight's location/endpoint topology (flight/types.h:366)
-— but TPU pods coordinate through jax.distributed + the mesh, not through
-a service registry. On a pod slice:
+— but multi-host accelerator jobs coordinate through jax.distributed +
+the mesh, not through a service registry. On several hosts:
 
     initialize()                 # once per host process
     mesh = global_mesh()         # all chips across all hosts, axis "x"
 
 Per-host data loading composes with mesh.shard_batch: each host ingests
 its own fragment set (dataset.py scanner), places rows on its local
-devices, and the distributed operators' all_to_all collectives ride ICI
+devices, and the distributed operators' all_to_all collectives ride the device interconnect
 within the slice (DCN between slices is XLA's concern via the same API).
 
 Single-host validation strategy (SURVEY.md §4.6): the same code paths run

@@ -1,10 +1,10 @@
 """Hash-partitioned shuffle over the mesh: the engine's exchange operator.
 
 Replaces the reference's Flight-RPC data plane (arrow/flight/
-serialization_internal.cc zero-copy gRPC streaming) with compiled ICI
+serialization_internal.cc zero-copy gRPC streaming) with compiled
 collectives: inside `shard_map`, every device compacts its rows into
 per-destination buckets and one `lax.all_to_all` swaps them — no
-serialization, no host, data never leaves HBM/ICI (SURVEY.md §2
+serialization, no host, data never leaves device memory and the interconnect (SURVEY.md §2
 "Distributed exchange" row).
 
 Fixed-shape contract: all_to_all needs equal bucket sizes, so buckets are

@@ -7,7 +7,7 @@ shm segment any process can open; tables are stored as Arrow IPC stream
 bytes and read back zero-copy (pyarrow reads straight out of the mapped
 buffer).
 
-Role in the TPU pipeline (SURVEY.md §2 parallelism table): host-RAM
+Role in the device pipeline (SURVEY.md §2 parallelism table): host-RAM
 staging between ingest processes and the device-feeding process.
 """
 

@@ -1,15 +1,17 @@
 """Per-kernel roofline profiler for the eager compute path.
 
 Reference: the tracing/metrics subsystem (SURVEY.md §5; the reference's
-util/tracing_internal.h spans + benchmark counters). On TPU the number
-that matters for a memory-bound columnar engine is each kernel's achieved
-HBM bandwidth as a fraction of the device roofline — this module records
-exactly that for every `call_function` dispatch inside the context:
+util/tracing_internal.h spans + benchmark counters). The number that
+matters for a memory-bound columnar engine is each kernel's achieved
+device-memory bandwidth as a fraction of the device roofline — this
+module records exactly that for every `call_function` dispatch inside
+the context:
 
     with KernelProfiler() as prof:
         ac.add(a, b)
         ac.filter(batch, mask)
     prof.report()        # per-kernel: calls, ms, MB moved, roofline %
+                         # (roofline "n/a" where the device has none)
 
 Bytes are accounted from the pytree leaves of the input/output datums
 (device-array nbytes — the engine's columns are pytrees). Wall time
@@ -19,6 +21,7 @@ as the reference's benchmark counters).
 
 from __future__ import annotations
 
+import functools
 import threading
 import time
 from dataclasses import dataclass, field
@@ -26,25 +29,33 @@ from typing import Dict, List, Optional
 
 __all__ = ["KernelProfiler", "KernelRecord", "hbm_peak_bytes_per_sec"]
 
-# Published peak HBM bandwidth per chip (public spec sheets).
-HBM_PEAK = {
-    "TPU v5 lite": 819e9,   # v5e
-    "TPU v5e": 819e9,
-    "TPU v5p": 2765e9,
-    "TPU v4": 1228e9,
-    "TPU v6e": 1640e9,
-}
-_CPU_NOMINAL = 50e9
+# Published peak device-memory bandwidth, matched on the device_kind
+# that JAX reports (NVIDIA H100 data sheet: SXM5 80 GB HBM3 3.35 TB/s,
+# PCIe 80 GB HBM2e 2.0 TB/s). First match wins, so the PCIe entry leads.
+HBM_PEAK = (
+    ("H100 PCIe", 2.0e12),
+    ("H100 80GB HBM3", 3.35e12),
+    ("H100 SXM", 3.35e12),
+)
 
 
-def hbm_peak_bytes_per_sec(device=None) -> float:
-    """Roofline denominator for a device (nominal 50 GB/s for CPU)."""
+def hbm_peak_bytes_per_sec(device=None) -> Optional[float]:
+    """Roofline denominator for a device, in bytes/s.
+
+    None on the CPU (no roofline: "not measured"); an accelerator whose
+    device_kind is not in HBM_PEAK raises rather than guessing."""
     import jax
 
     dev = device if device is not None else jax.devices()[0]
-    kind = str(getattr(dev, "device_kind", "cpu"))
-    return next((v for k, v in HBM_PEAK.items() if k in kind),
-                _CPU_NOMINAL)
+    if dev.platform == "cpu":
+        return None
+    kind = str(dev.device_kind)
+    for key, peak in HBM_PEAK:
+        if key in kind:
+            return peak
+    raise ValueError(f"no published memory bandwidth for device kind "
+                     f"{kind!r}; add it to profiler.HBM_PEAK with its "
+                     f"source")
 
 
 def _tree_nbytes(x) -> int:
@@ -69,7 +80,9 @@ class KernelRecord:
     def bytes_moved(self) -> int:
         return self.bytes_in + self.bytes_out
 
-    def roofline_frac(self, peak: float) -> float:
+    def roofline_frac(self, peak: Optional[float]) -> Optional[float]:
+        if peak is None:
+            return None
         if self.wall_s <= 0:
             return 0.0
         return (self.bytes_moved / self.wall_s) / peak
@@ -80,7 +93,7 @@ class _Agg:
     calls: int = 0
     wall_s: float = 0.0
     bytes_moved: int = 0
-    best_frac: float = 0.0
+    best_frac: Optional[float] = None
 
 
 _active = threading.local()
@@ -96,14 +109,11 @@ class KernelProfiler:
     def __init__(self, device=None):
         self.records: List[KernelRecord] = []
         self._device = device
-        self._peak: Optional[float] = None
         self._prev = None
 
-    @property
-    def peak(self) -> float:
-        if self._peak is None:
-            self._peak = hbm_peak_bytes_per_sec(self._device)
-        return self._peak
+    @functools.cached_property
+    def peak(self) -> Optional[float]:
+        return hbm_peak_bytes_per_sec(self._device)
 
     def __enter__(self):
         self._prev = _current()
@@ -141,8 +151,9 @@ class KernelProfiler:
             agg.calls += 1
             agg.wall_s += r.wall_s
             agg.bytes_moved += r.bytes_moved
-            agg.best_frac = max(agg.best_frac,
-                                r.roofline_frac(self.peak))
+            frac = r.roofline_frac(self.peak)
+            if frac is not None:
+                agg.best_frac = max(agg.best_frac or 0.0, frac)
         return out
 
     def summary(self) -> List[dict]:
@@ -156,7 +167,8 @@ class KernelProfiler:
                 "mb_moved": round(a.bytes_moved / 1e6, 3),
                 "avg_gbps": round(
                     a.bytes_moved / a.wall_s / 1e9, 2) if a.wall_s else 0.0,
-                "best_roofline_frac": round(a.best_frac, 4),
+                "best_roofline_frac": None if a.best_frac is None
+                else round(a.best_frac, 4),
             })
         return rows
 
@@ -164,9 +176,10 @@ class KernelProfiler:
         lines = [f"{'kernel':<24}{'calls':>6}{'ms':>10}{'MB':>10}"
                  f"{'GB/s':>8}{'roof%':>7}"]
         for row in self.summary():
+            frac = row["best_roofline_frac"]
+            roof = "n/a" if frac is None else f"{100 * frac:.1f}%"
             lines.append(
                 f"{row['kernel']:<24}{row['calls']:>6}"
                 f"{row['total_ms']:>10.3f}{row['mb_moved']:>10.3f}"
-                f"{row['avg_gbps']:>8.2f}"
-                f"{100 * row['best_roofline_frac']:>6.1f}%")
+                f"{row['avg_gbps']:>8.2f}{roof:>7}")
         return "\n".join(lines)

@@ -3,7 +3,7 @@
 Reference: cpp/src/arrow/config.{h,cc} (GetBuildInfo/GetRuntimeInfo —
 version + active SIMD level) and memory_pool.h:114,138
 (LoggingMemoryPool/ProxyMemoryPool + bytes_allocated/max_memory
-counters). TPU mapping: "SIMD level" becomes the active XLA backend +
+counters). Device mapping: "SIMD level" becomes the active XLA backend +
 device kind; pool counters come from the PJRT allocator via
 Device.memory_stats().
 """
@@ -39,7 +39,7 @@ def build_info() -> BuildInfo:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeInfo:
-    backend: str          # the "SIMD level" analogue: cpu | tpu | ...
+    backend: str          # the "SIMD level" analogue: cpu | gpu | ...
     device_kind: str
     device_count: int
     x64_enabled: bool
@@ -73,7 +73,7 @@ def device_memory_stats(device=None) -> Dict[str, int]:
 
 class profile:
     """JAX profiler trace context (SURVEY.md §5 tracing: the reference has
-    only benchmark counters; the TPU equivalent is a real profiler trace
+    only benchmark counters; the device equivalent is a real profiler trace
     viewable in XProf/TensorBoard).
 
         with runtime.profile("/tmp/a1t-trace"):

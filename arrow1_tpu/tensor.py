@@ -2,7 +2,7 @@
 
 Reference: cpp/src/arrow/tensor*.{h,cc} + arrow/tensor/ — dense Tensor
 with strides, SparseCOOTensor/SparseCSRMatrix/SparseCSFTensor and
-conversions. TPU redesign: a dense Tensor is just a device array + dim
+conversions. device redesign: a dense Tensor is just a device array + dim
 names (strides are XLA's concern); sparse formats keep the reference's
 index layouts as device arrays so they convert zero-copy to/from
 pyarrow's sparse tensors at the host boundary.
@@ -176,7 +176,7 @@ class SparseCSRMatrix:
         return Tensor(out, self.dim_names)
 
     def matvec(self, x) -> jnp.ndarray:
-        """SpMV via segment-sum — the TPU-native sparse kernel shape."""
+        """SpMV via segment-sum — the device-native sparse kernel shape."""
         nnz = self.values.shape[0]
         lengths = self.indptr[1:] - self.indptr[:-1]
         rows = jnp.repeat(jnp.arange(self.shape[0]), lengths,

@@ -6,7 +6,7 @@ util/task_group.h:42 (serial + threaded TaskGroup: Append/Finish,
 first-error propagation, ok() early-stop).
 
 Own worker/queue machinery (threading primitives only — this is the
-component, not a wrapper over concurrent.futures). On TPU the *device*
+component, not a wrapper over concurrent.futures). On the device the *device*
 parallelism belongs to XLA; this pool runs the host plane: file IO,
 decode, IPC assembly, dataset discovery — exactly where the reference
 spends its CPU threads. Capacity semantics follow the reference: capacity

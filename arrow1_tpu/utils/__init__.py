@@ -1,10 +1,6 @@
-"""Shared utilities: tiling/padding math, key hashing, timing.
+"""Shared utilities (the reference's arrow/util/ analogue).
 
-The grab-bag layer mirroring the reference's arrow/util/ — most of that
-directory's content (bitmaps, SIMD dispatch, futures) dissolved into the
-TPU design (see COMPONENTS.md); what remains generally useful lives here.
+Most of that directory's content (bitmaps, SIMD dispatch, futures)
+dissolved into the columnar device design (see COMPONENTS.md); what
+remains lives here: ``tzif`` (time-zone database reader).
 """
-
-from .tiling import (ceil_div, pad_axis, pad_to_multiple_1d,  # noqa: F401
-                     round_up)
-from .timing import measure_dispatch_overhead, timed_device  # noqa: F401

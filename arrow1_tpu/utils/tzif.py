@@ -3,7 +3,7 @@
 The reference implements timezone kernels over a vendored tz library
 (cpp/src/arrow/compute/kernels/scalar_temporal_unary.cc with
 cpp/src/arrow/vendored/datetime/). This module plays that role
-TPU-natively: the system tzdb's binary TZif files are parsed once on
+natively for the device: the system tzdb's binary TZif files are parsed once on
 the host into three small arrays (transition instants, utc offsets,
 dst flags), and the per-row work — offset lookup at 10M+ rows — is a
 single `searchsorted` + gather that runs on device.

@@ -1,7 +1,7 @@
 """Structural validation of columns and batches.
 
 Reference: cpp/src/arrow/array/validate.cc — ValidateArray/ValidateFull
-(buffer presence + cheap checks vs full data checks). The TPU layouts
+(buffer presence + cheap checks vs full data checks). The device layouts
 have fewer invariants (no packed bitmaps, no offsets into shared
 buffers); what remains: shape agreement, dictionary code ranges, list
 offset monotonicity.

@@ -3,21 +3,15 @@ reference: dev/archery/archery/benchmark/{runner,compare,google}.py).
 
 Usage:
   python benchmarks/compare.py baseline.json contender.json [--threshold 0.05]
-  python benchmarks/compare.py --auto          # diff the round artifacts
 
-Reads any of the three round-artifact formats: run_benchmarks.py output
-({"benchmarks": [...]}), the driver's BENCH_r{N}.json ({"parsed": ...}),
-and measure_r2-style op maps ({name: {"mrows_s": ...}}).
-Exit code 1 if any benchmark regressed beyond the threshold.
+Reads run_benchmarks.py output ({"benchmarks": [...]}). Exit code 1 if
+any benchmark regressed beyond the threshold.
 """
 
 from __future__ import annotations
 
 import argparse
-import glob
 import json
-import os
-import re
 import sys
 
 
@@ -27,33 +21,7 @@ def load(path):
     if isinstance(data, dict) and "benchmarks" in data:
         return {b["benchmark"]: {"rows_per_sec": b["rows_per_sec"]}
                 for b in data["benchmarks"]}
-    if isinstance(data, dict) and "parsed" in data:  # driver BENCH_r{N}
-        p = data["parsed"]
-        return {p["metric"]: {"rows_per_sec": p["value"]}}
-    if isinstance(data, dict):  # measure_r2 op map
-        out = {}
-        for name, row in data.items():
-            if isinstance(row, dict) and "mrows_s" in row:
-                out[name] = {"rows_per_sec": row["mrows_s"] * 1e6}
-        return out
     raise ValueError(f"unrecognized benchmark file format: {path}")
-
-
-def _latest_rounds():
-    """(baseline, contender) paths from the repo-root round artifacts."""
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cands = sorted(glob.glob(os.path.join(root, "BENCH_r*.json")),
-                   key=lambda p: int(re.search(r"r(\d+)", p).group(1)))
-    here = os.path.dirname(os.path.abspath(__file__))
-    tpus = sorted(glob.glob(os.path.join(here, "**", "results_tpu_r*.json"),
-                            recursive=True),
-                  key=lambda p: int(re.search(r"r(\d+)", p).group(1)))
-    pairs = []
-    if len(cands) >= 2:
-        pairs.append((cands[-2], cands[-1]))
-    if len(tpus) >= 2:
-        pairs.append((tpus[-2], tpus[-1]))
-    return pairs
 
 
 def diff(base, cont, threshold=0.05, out=sys.stdout):
@@ -83,31 +51,13 @@ def diff(base, cont, threshold=0.05, out=sys.stdout):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("baseline", nargs="?")
-    ap.add_argument("contender", nargs="?")
-    ap.add_argument("--auto", action="store_true",
-                    help="diff the two most recent round artifacts "
-                         "(BENCH_r*.json and results_tpu_r*.json)")
+    ap.add_argument("baseline")
+    ap.add_argument("contender")
     ap.add_argument("--threshold", type=float, default=0.05,
                     help="relative regression threshold")
     args = ap.parse_args()
-
-    regressions = 0
-    if args.auto:
-        pairs = _latest_rounds()
-        if not pairs:
-            print("compare --auto: fewer than two rounds of artifacts")
-            return
-        for base_p, cont_p in pairs:
-            print(f"== {os.path.basename(base_p)} -> "
-                  f"{os.path.basename(cont_p)}")
-            regressions += diff(load(base_p), load(cont_p),
-                                args.threshold)
-    else:
-        if not (args.baseline and args.contender):
-            ap.error("need baseline and contender (or --auto)")
-        regressions = diff(load(args.baseline), load(args.contender),
-                           args.threshold)
+    regressions = diff(load(args.baseline), load(args.contender),
+                       args.threshold)
     sys.exit(1 if regressions else 0)
 
 

@@ -3,7 +3,7 @@
 Runs the config-5 style pipeline (filter -> join -> group_by -> sort)
 through the distributed operators on a 2-process x 4-local-device CPU
 topology (8 global devices), exercising exactly the code paths a real
-multi-host TPU slice runs: jax.distributed init, global mesh spanning
+multi-host accelerator job runs: jax.distributed init, global mesh spanning
 non-addressable devices, gloo collectives under shard_map, and
 allgather-based result egress (SURVEY.md §4.6 multi-node-without-a-
 cluster; reference analogue: Flight client+server in one process,

@@ -187,13 +187,10 @@ class TestCompiledPipeline:
 
 
 class TestLargeGCompactTail:
-    """The G > 65536 group-by tail (startpos/key-word stream compaction,
-    slice-based next-segment positions — the TPU fast path) exercised on
-    CPU via A1T_GROUP_STARTPOS=interpret."""
+    """The G > 65536 group-by tail (start positions from the flag sort,
+    slice-based next-segment positions, packed f64 end gather)."""
 
-    def _run(self, monkeypatch, mode):
-        monkeypatch.setenv("A1T_GROUP_STARTPOS", mode)
-        n, G = 140_000, 70_000
+    def _run(self, n, G):
         rng = np.random.default_rng(11)
         keys = rng.integers(0, G, n)
         vals = rng.standard_normal(n)
@@ -226,11 +223,13 @@ class TestLargeGCompactTail:
                 assert a == pytest.approx(bb, rel=1e-9, abs=1e-9), \
                     (col_g, k, a, bb)
 
-    def test_interpret_compact_tail(self, monkeypatch):
-        self._run(monkeypatch, "interpret")
+    def test_interpret_compact_tail(self):
+        # about two rows per key: most groups hold one or two rows
+        self._run(140_000, 70_000)
 
-    def test_sort_fallback_tail(self, monkeypatch):
-        self._run(monkeypatch, "sort")
+    def test_sort_fallback_tail(self):
+        # G just past the searchsorted/flag-sort switch at 65536
+        self._run(100_000, 65_537)
 
 
 class TestExactMultiKeyJoin:

@@ -1,5 +1,6 @@
-"""Engine-level parity for the MXU group-by fast path (A1T_SEGSUM=interpret
-forces the kernel path on CPU). Oracle: pyarrow TableGroupBy.aggregate."""
+"""Engine-level group-by parity on dense-range integer and dictionary keys
+(the shapes a dense-key grouped sum would serve), through a1t.group_by.
+Oracle: pyarrow TableGroupBy.aggregate."""
 
 import numpy as np
 import pyarrow as pa
@@ -23,28 +24,27 @@ def _assert_same(got, expected):
         assert a == b, (a, b)
 
 
-def _run(rb, keys, aggs, monkeypatch):
-    monkeypatch.setenv("A1T_SEGSUM", "interpret")
-    from arrow1_tpu.ops.groupby import _mxu_group_by
-    batch = a1t.record_batch(rb)
-    got = _mxu_group_by(batch, keys, aggs)
-    assert got is not None, "fast path unexpectedly declined"
+def _run(rb, keys, aggs):
+    got = a1t.group_by(a1t.record_batch(rb), keys, aggs)
     oracle = pa.Table.from_batches([rb]).group_by(keys).aggregate(aggs)
     _assert_same(got, oracle)
 
 
 class TestMxuGroupBy:
-    def test_int_key_sum_count_mean(self, rng, monkeypatch):
+    @pytest.mark.parametrize("aggs", [
+        [("v", "sum"), ("v", "count"), ("v", "mean")],
+        [("v", "sum"), ("v", "count")],
+    ])
+    def test_int_key_sum_count_mean(self, rng, aggs):
         n = 4000
         rb = pa.record_batch({
             "k": pa.array(rng.integers(-50, 50, n), type=pa.int64()),
             "v": pa.array(rng.integers(-(1 << 40), 1 << 40, n),
                           type=pa.int64()),
         })
-        _run(rb, ["k"], [("v", "sum"), ("v", "count"), ("v", "mean")],
-             monkeypatch)
+        _run(rb, ["k"], aggs)
 
-    def test_null_key_and_values(self, rng, monkeypatch):
+    def test_null_key_and_values(self, rng):
         n = 2000
         k = rng.integers(0, 20, n).astype(float)
         k[rng.random(n) < 0.1] = np.nan
@@ -56,10 +56,9 @@ class TestMxuGroupBy:
             "v": pa.array([None if np.isnan(x) else int(x) for x in v],
                           type=pa.int16()),
         })
-        _run(rb, ["k"], [("v", "sum"), ("v", "count"), ("v", "mean")],
-             monkeypatch)
+        _run(rb, ["k"], [("v", "sum"), ("v", "count"), ("v", "mean")])
 
-    def test_dict_key(self, rng, monkeypatch):
+    def test_dict_key(self, rng):
         n = 1000
         codes = rng.integers(0, 5, n)
         words = ["aa", "bb", "cc", "dd", "ee"]
@@ -67,9 +66,9 @@ class TestMxuGroupBy:
             "k": pa.array([words[c] for c in codes]).dictionary_encode(),
             "v": pa.array(rng.integers(0, 100, n), type=pa.int64()),
         })
-        _run(rb, ["k"], [("v", "sum")], monkeypatch)
+        _run(rb, ["k"], [("v", "sum")])
 
-    def test_uint_and_small_dtypes(self, rng, monkeypatch):
+    def test_uint_and_small_dtypes(self, rng):
         n = 3000
         rb = pa.record_batch({
             "k": pa.array(rng.integers(0, 300, n), type=pa.uint16()),
@@ -77,51 +76,12 @@ class TestMxuGroupBy:
             "b": pa.array(rng.integers(-128, 127, n), type=pa.int8()),
         })
         _run(rb, ["k"], [("a", "sum"), ("b", "sum"), ("b", "mean"),
-                         ("a", "count")], monkeypatch)
+                         ("a", "count")])
 
-    def test_declines_out_of_scope(self, monkeypatch):
-        monkeypatch.setenv("A1T_SEGSUM", "interpret")
-        from arrow1_tpu.ops.groupby import _mxu_group_by
-        rb = pa.record_batch({
-            "k": pa.array([1.5, 2.5]),   # float key
-            "v": pa.array([1, 2], type=pa.int64()),
-        })
-        assert _mxu_group_by(a1t.record_batch(rb), ["k"],
-                             [("v", "sum")]) is None
-        rb2 = pa.record_batch({
-            "k": pa.array([1, 2], type=pa.int64()),
-            "v": pa.array([1.0, 2.0]),   # float values
-        })
-        assert _mxu_group_by(a1t.record_batch(rb2), ["k"],
-                             [("v", "sum")]) is None
-        # min aggregate not in the MXU set
-        assert _mxu_group_by(a1t.record_batch(rb2), ["k"],
-                             [("v", "min")]) is None
-        # huge key range
-        rb3 = pa.record_batch({
-            "k": pa.array([0, 1 << 40], type=pa.int64()),
-            "v": pa.array([1, 2], type=pa.int64()),
-        })
-        assert _mxu_group_by(a1t.record_batch(rb3), ["k"],
-                             [("v", "sum")]) is None
-
-    def test_group_by_entry_point_uses_fast_path(self, rng, monkeypatch):
-        monkeypatch.setenv("A1T_SEGSUM", "interpret")
-        n = 1500
-        rb = pa.record_batch({
-            "k": pa.array(rng.integers(0, 9, n), type=pa.int64()),
-            "v": pa.array(rng.integers(-5, 1 << 30, n), type=pa.int64()),
-        })
-        got = a1t.group_by(a1t.record_batch(rb), ["k"],
-                           [("v", "sum"), ("v", "count")])
-        oracle = pa.Table.from_batches([rb]).group_by(["k"]).aggregate(
-            [("v", "sum"), ("v", "count")])
-        _assert_same(got, oracle)
-
-    def test_int64_extremes_wraparound(self, monkeypatch):
+    def test_int64_extremes_wraparound(self):
         # pyarrow sum wraps mod 2^64 (C++ int64 accumulate); match it
         rb = pa.record_batch({
             "k": pa.array([0, 0, 1], type=pa.int64()),
             "v": pa.array([(1 << 62), (1 << 62), -5], type=pa.int64()),
         })
-        _run(rb, ["k"], [("v", "sum")], monkeypatch)
+        _run(rb, ["k"], [("v", "sum")])

@@ -1,9 +1,5 @@
-"""Pallas kernel unit tests (interpret mode on the CPU mesh).
-
-TPU-hardware validation happens out-of-band (the kernels are exact on
-v5e — see kernels/TOOLCHAIN_NOTES.md); these tests pin the semantics via
-the interpreter so refactors can't drift.
-"""
+"""Device kernel unit tests (kernels/*.py) on the CPU mesh, each against
+an independent oracle."""
 
 import numpy as np
 import pytest
@@ -11,128 +7,6 @@ import pytest
 import jax.numpy as jnp
 
 import arrow1_tpu  # noqa: F401  (x64)
-from arrow1_tpu.kernels.compaction import compact_u64, compact_u64_xla
-from arrow1_tpu.kernels.compaction_split import compact_split
-from arrow1_tpu.kernels.compaction_v4 import TILE_V4 as TILE, compact_v4 as compact_kernel
-from arrow1_tpu.kernels.segsum import segment_sum_count, segment_sum_count_xla
-
-
-def data(n, seed=0, sel=0.4):
-    rng = np.random.default_rng(seed)
-    mask = jnp.asarray(rng.random(n) < sel)
-    k = jnp.asarray(rng.integers(-(1 << 62), 1 << 62, n).astype(np.int64))
-    fbits = jnp.asarray(rng.standard_normal(n).view(np.int64))
-    return mask, k, fbits
-
-
-@pytest.mark.parametrize("sel", [0.0, 0.25, 0.5, 1.0])
-def test_compact_v3_matches_oracle(sel):
-    n = 4 * TILE
-    mask, k, fbits = data(n, sel=sel)
-    (pk, pf), cnt = compact_kernel(mask, (k, fbits), interpret=True)
-    (xk, xf), xcnt = compact_u64_xla(mask, (k, fbits))
-    cnt = int(cnt)
-    assert cnt == int(xcnt)
-    assert bool(jnp.all(pk[:cnt] == xk[:cnt]))
-    assert bool(jnp.all(pf[:cnt] == xf[:cnt]))
-
-
-def test_compact_v3_mixed_dtypes():
-    n = 2 * TILE
-    rng = np.random.default_rng(3)
-    mask = jnp.asarray(rng.random(n) < 0.5)
-    i32 = jnp.asarray(rng.integers(-(1 << 30), 1 << 30, n).astype(np.int32))
-    f32 = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    b = jnp.asarray(rng.random(n) < 0.5)
-    i64 = jnp.asarray(rng.integers(-(1 << 62), 1 << 62, n).astype(np.int64))
-    (o32, of, ob, o64), cnt = compact_kernel(mask, (i32, f32, b, i64),
-                                         interpret=True)
-    cnt = int(cnt)
-    sel = np.asarray(mask)
-    np.testing.assert_array_equal(np.asarray(o32[:cnt]), np.asarray(i32)[sel])
-    np.testing.assert_array_equal(np.asarray(of[:cnt]), np.asarray(f32)[sel])
-    np.testing.assert_array_equal(np.asarray(ob[:cnt]), np.asarray(b)[sel])
-    np.testing.assert_array_equal(np.asarray(o64[:cnt]), np.asarray(i64)[sel])
-
-
-def test_compact_v3_rejects_f64():
-    n = TILE
-    mask, k, _ = data(n)
-    f64 = jnp.asarray(np.random.default_rng(0).standard_normal(n))
-    with pytest.raises(TypeError, match="bit-viewed"):
-        compact_kernel(mask, (f64,), interpret=True)
-
-
-def test_compact_split_matches_oracle():
-    n = 4 * TILE
-    mask, k, fbits = data(n, seed=7, sel=0.6)
-    (pk, pf), cnt = compact_split(mask, (k, fbits), interpret=True)
-    (xk, xf), xcnt = compact_u64_xla(mask, (k, fbits))
-    cnt = int(cnt)
-    assert cnt == int(xcnt)
-    assert bool(jnp.all(pk[:cnt] == xk[:cnt]))
-    assert bool(jnp.all(pf[:cnt] == xf[:cnt]))
-
-
-def test_compact_u64_carry_version():
-    n = 4 * TILE
-    mask, k, _ = data(n, seed=9, sel=0.3)
-    (pk,), cnt = compact_u64(mask, (k,), interpret=True)
-    (xk,), xcnt = compact_u64_xla(mask, (k,))
-    cnt = int(cnt)
-    assert cnt == int(xcnt)
-    assert bool(jnp.all(pk[:cnt] == xk[:cnt]))
-
-
-def test_segsum_kernel():
-    rng = np.random.default_rng(1)
-    n, G = 4096, 256
-    gid = jnp.asarray(rng.integers(0, G, n).astype(np.int32))
-    val = jnp.asarray(rng.standard_normal(n).astype(np.float32))
-    live = jnp.asarray(rng.random(n) < 0.9)
-    s1, c1 = segment_sum_count(gid, val, live, G, interpret=True)
-    s2, c2 = segment_sum_count_xla(gid, val, live, G)
-    assert bool(jnp.all(c1 == c2))
-    np.testing.assert_allclose(np.asarray(s1), np.asarray(s2), atol=1e-4)
-
-
-class TestCompactV4:
-    """Butterfly compaction (kernels/compaction_v4.py) — interpret mode."""
-
-    def test_exact_multi_dtype(self):
-        import numpy as np
-        from arrow1_tpu.kernels.compaction_v4 import compact_v4
-
-        rng = np.random.default_rng(7)
-        n = 4096
-        m = rng.uniform(size=n) < 0.4
-        a = rng.integers(-2**62, 2**62, n, dtype=np.int64)
-        b = rng.integers(-2**31, 2**31, n, dtype=np.int32)
-        f = rng.normal(size=n).astype(np.float32)
-        (ca, cb, cf), cnt = compact_v4(
-            jnp.asarray(m), (jnp.asarray(a), jnp.asarray(b), jnp.asarray(f)),
-            interpret=True)
-        cnt = int(cnt)
-        assert cnt == m.sum()
-        np.testing.assert_array_equal(np.asarray(ca)[:cnt], a[m])
-        np.testing.assert_array_equal(np.asarray(cb)[:cnt], b[m])
-        np.testing.assert_array_equal(np.asarray(cf)[:cnt], f[m])
-
-    @pytest.mark.parametrize("p", [0.0, 0.01, 0.5, 0.99, 1.0])
-    @pytest.mark.parametrize("rows", [8, 32])
-    def test_selectivity_grid(self, p, rows):
-        import numpy as np
-        from arrow1_tpu.kernels.compaction_v4 import compact_v4
-
-        rng = np.random.default_rng(11)
-        n = rows * 128 * 3
-        m = rng.uniform(size=n) < p
-        a = rng.integers(-2**62, 2**62, n, dtype=np.int64)
-        (ca,), cnt = compact_v4(jnp.asarray(m), (jnp.asarray(a),),
-                                interpret=True, rows=rows)
-        cnt = int(cnt)
-        assert cnt == m.sum()
-        np.testing.assert_array_equal(np.asarray(ca)[:cnt], a[m])
 
 
 class TestHashTable:
@@ -209,28 +83,6 @@ class TestHashTable:
         assert int(t.overflow) == 0
         got = ht.hash_table_probe(t, jnp.asarray(np.array([5, 7], np.uint64)))
         np.testing.assert_array_equal(np.asarray(got), [10, 13])
-
-
-class TestBroadcastProbe:
-    """Small sorted-build Pallas probe (interpret mode)."""
-
-    def test_matches_searchsorted(self):
-        import numpy as np
-        from arrow1_tpu.kernels.hashtable import broadcast_probe
-
-        rng = np.random.default_rng(3)
-        T = 100
-        build = np.sort(rng.integers(0, 1 << 63, T).astype(np.uint64))
-        n = 128 * 128
-        probe = np.concatenate([
-            rng.choice(build, n // 2),
-            rng.integers(0, 1 << 64, n // 2, dtype=np.uint64)])
-        lo, cnt = broadcast_probe(jnp.asarray(build), jnp.asarray(probe),
-                                  interpret=True)
-        exp_lo = np.searchsorted(build, probe, side="left")
-        exp_cnt = np.searchsorted(build, probe, side="right") - exp_lo
-        np.testing.assert_array_equal(np.asarray(lo), exp_lo)
-        np.testing.assert_array_equal(np.asarray(cnt), exp_cnt.astype(np.int32))
 
 
 class TestRunGeometry:

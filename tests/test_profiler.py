@@ -1,6 +1,7 @@
 """Per-kernel roofline profiler (arrow1_tpu/profiler.py)."""
 
 import numpy as np
+import pytest
 
 import arrow1_tpu as a1t
 import arrow1_tpu.compute as ac
@@ -53,9 +54,10 @@ def test_summary_and_report():
     by_name = {r["kernel"]: r for r in rows}
     assert by_name["add"]["calls"] == 3
     assert by_name["add"]["mb_moved"] > 0
-    assert 0 <= by_name["add"]["best_roofline_frac"]
+    # the CPU has no roofline: the share is "not measured", not a guess
+    assert by_name["add"]["best_roofline_frac"] is None
     text = prof.report()
-    assert "add" in text and "roof%" in text
+    assert "add" in text and "roof%" in text and "n/a" in text
 
 
 def test_roofline_math():
@@ -66,7 +68,30 @@ def test_roofline_math():
 
 
 def test_peak_lookup_cpu():
-    assert hbm_peak_bytes_per_sec() > 0
+    assert hbm_peak_bytes_per_sec() is None
+    assert KernelRecord("x", 0.001, 1, 1).roofline_frac(None) is None
+
+
+def _fake_device(kind, platform="gpu"):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(platform=platform, device_kind=kind)
+
+
+@pytest.mark.parametrize("kind,peak", [
+    ("NVIDIA H100 80GB HBM3", 3.35e12),
+    ("NVIDIA H100 SXM5 80GB", 3.35e12),
+    ("NVIDIA H100 PCIe", 2.0e12),
+])
+def test_peak_lookup_h100(kind, peak):
+    assert hbm_peak_bytes_per_sec(_fake_device(kind)) == peak
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA A100-SXM4-80GB", "AMD Instinct MI300X",
+                                  "NVIDIA H100 NVL"])
+def test_peak_lookup_unknown_kind_raises(kind):
+    with pytest.raises(ValueError, match="no published memory bandwidth"):
+        hbm_peak_bytes_per_sec(_fake_device(kind))
 
 
 def test_batch_datums_accounted():

@@ -66,8 +66,7 @@ class TestStagedGroupBy:
     def test_multikey_identical(self):
         _check_identical(_batch(8_000, 40, 2), ["k", "k2"], AGGS, 512)
 
-    def test_big_g_compact_path_identical(self, monkeypatch):
-        monkeypatch.setenv("A1T_GROUP_STARTPOS", "interpret")
+    def test_big_g_compact_path_identical(self):
         _check_identical(_batch(140_000, 70_000, 3),
                          ["k"], [("v", "sum"), ("v", "count"),
                                  ("v", "min"), ("v", "max")], 70_000)

@@ -211,10 +211,9 @@ class TestQ3:
 
 
 class TestQ1PallasPath:
-    def test_eager_with_kernel_filter(self, monkeypatch):
-        """Q1 through the Pallas compaction path (interpret mode) — proves
-        the kernel composes inside real pipelines, not just unit tests."""
-        monkeypatch.setenv("A1T_PALLAS", "interpret")
+    def test_eager_with_kernel_filter(self):
+        """Q1 through the eager filter on a second seed — the filter
+        composes inside real pipelines, not just unit tests."""
         li = make_lineitem(seed=21)
         b = a1t.record_batch(li)
         mask = (a1t.field("l_shipdate_days") <= 10000).execute(b)
